@@ -1,4 +1,4 @@
-"""Step-count study: adaptive DP5(4) vs Fehlberg 7(8) (VERDICT r2 item 8).
+"""Step-count study: adaptive DP5(4) vs Fehlberg 7(8).
 
 The reference's production GPU path integrates rays with adaptive Vern7
 (raytracing/GPURaytracing.jl:111-113). This study measures, on the

@@ -1,14 +1,12 @@
-"""On-chip capacity demo: 2048^2 two-layer QG — the reference's LARGEST
-production grid (swqg/TwoLayerParameters.jl:5) — stepping on one TPU chip.
+"""Capacity demo: 2048^2 two-layer QG — the reference's LARGEST
+production grid (swqg/TwoLayerParameters.jl:5) — stepping on one GPU.
 
 Measures replicated IFMAB3 flow steps/s at 2048^2 (2-field state, 2x2
 matrix-exponential blocks) and extracts the barotropic ray fields once.
 Memory: state 2x2048x1025 c64 = 34 MB, expm tables 4x that, physical
-scratch ~0.5 GB — single-chip comfortable; the slab-sharded path
-(parallel/sharded.ShardedTwoLayerQG) exists for multi-chip scale-out and
+scratch ~0.5 GB — comfortable on one card; the slab-sharded path
+(parallel/sharded.ShardedTwoLayerQG) exists for multi-card scale-out and
 is equality-pinned on the 8-device CPU mesh.
-
-Recorded numbers: scripts/hw_validation.md (round 4).
 """
 from __future__ import annotations
 

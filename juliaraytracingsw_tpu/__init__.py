@@ -1,4 +1,4 @@
-"""juliaraytracingsw_tpu — TPU-native framework for WKB wave-packet ray tracing
+"""juliaraytracingsw_tpu — JAX framework for WKB wave-packet ray tracing
 through rotating-shallow-water / quasi-geostrophic turbulence.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
@@ -10,7 +10,7 @@ codebase ndefilippis/JuliaRaytracingSW (Julia + FourierFlows + CUDA.jl):
                   one-layer SWQG, two-layer QG, multi-layer QG, Thomas-Yamada.
 - ``rays``      : batched WKB ray tracing (dx/dt = u + c_g, dk/dt = -(grad u)^T k)
                   with periodic bilinear/bicubic interpolation and fixed/adaptive RK.
-- ``ops``       : Pallas TPU kernels for the hot paths.
+- ``ops``       : fused Pallas (Triton) ray kernels for GPUs.
 - ``coupled``   : interleaved PDE-step / ray-substep drivers, diagnostics, outputs.
 - ``parallel``  : device meshes, packet sharding, distributed-FFT helpers.
 - ``analysis``  : omega-k spectra, exact radial spectra, transfer functions,

@@ -2,8 +2,8 @@
 
 Equivalent of the reference's NUFFT interpolation path
 (raytracing/NUFFTRaytracing.jl uses nufft2d2 of psi-derived spectra at
-packet positions). On TPU the spectrally-exact evaluation is a dense
-contraction over retained modes — MXU-friendly matrix work rather than a
+packet positions). The spectrally-exact evaluation is a dense
+contraction over retained modes — matrix work rather than a
 spreading/gridding kernel:
 
     f(x_j) = sum_{k,l} fh[l,k] e^{i(k x_j + l y_j)}  (conjugate-even in k)
@@ -11,7 +11,7 @@ spreading/gridding kernel:
 Factored as two stages through the separable phase,
     g[l, j] = sum_k w_k fh[l, k] e^{i k x_j}      (nl x nkr) @ (nkr x N)
     f[j]    = sum_l g[l, j] e^{i l y_j}           contraction over nl
-so cost is O(nl*nkr*N + nl*N) — two complex matmuls on the MXU instead of
+so cost is O(nl*nkr*N + nl*N) — two complex matmuls instead of
 O(nl*nkr*N) scattered exponentials.
 """
 from __future__ import annotations
@@ -40,8 +40,8 @@ def nufft2d2(fh, xq, yq, grid):
     phase_x = jnp.exp(1j * jnp.outer(kr, xq - grid.x[0]))    # (nkr, N)
     phase_y = jnp.exp(1j * jnp.outer(ell, yq - grid.y[0]))   # (nl, N)
 
-    # precision=HIGHEST: these contractions lower to MXU matmuls, whose
-    # TPU default is bf16 passes — unacceptable for the exact-NUFFT claim
+    # precision=HIGHEST: at default precision a GPU may run these matmuls
+    # in TF32 — unacceptable for the exact-NUFFT claim
     g = jnp.einsum("...lk,kn->...ln", fh * w, phase_x.astype(fh.dtype),
                    precision=jax.lax.Precision.HIGHEST)
     f = jnp.einsum("...ln,ln->...n", g, phase_y.astype(fh.dtype),

@@ -1,6 +1,6 @@
 """Doubly-periodic 2-D spectral grid.
 
-TPU-first layout conventions (deliberately different from the reference's
+Layout conventions (deliberately different from the reference's
 FourierFlows ``(nx, ny)``/x-first layout, see /root/reference
 rsw/RotatingShallowWater.jl:52-53):
 

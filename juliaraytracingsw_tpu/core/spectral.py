@@ -6,24 +6,19 @@ rsw/RotatingShallowWater.jl:110-113), so spectral fields are numerically
 comparable with the reference.
 
 All transforms operate on the *last two* axes, so a channel-leading
-``(C, ny, nx)`` stack transforms in one batched XLA FFT call — on TPU this
-is the efficient shape (one fusion, no per-field dispatch).
+``(C, ny, nx)`` stack transforms in one batched FFT call (one fusion, no
+per-field dispatch).
 
-TPU backend (round 5, ``JRSW_FFT``): XLA lowers TPU FFTs to Cooley–Tukey
-stages whose small factors tile the MXU poorly; a DENSE DFT is O(N) more
-FLOPs but two perfect (N, N) @ (N, B) matmuls per axis and measures
-FASTER at production grids (512²: 33.2 vs 47.8 µs/transform f32-exact;
-19.1 µs with the BF16_X3 algorithm — prof_r5_flow_fft2.py). Modes:
+Transform backend (``JRSW_FFT``, read at trace time):
 
-- ``auto`` (default): dense-DFT matmuls (f32-HIGHEST, ~3e-7 exact) on TPU
-  backends for even square grids up to ``_DFT_MAX_NX``; jnp.fft elsewhere.
-- ``fft``: always jnp.fft (the CPU/test default and the golden-run path).
-- ``dft``: force the f32-HIGHEST dense DFT.
-- ``dft3``: dense DFT with the BF16_BF16_F32_X3 dot algorithm — 2.5× the
-  XLA FFT at ~2.4e-5 relative accuracy (quantified with the 3M stage;
-  opt-in throughput mode for production sweeps).
+- ``auto`` / ``fft`` (default): ``jnp.fft`` (cuFFT on a GPU).
+- ``dft``: dense-DFT matmuls, f32-HIGHEST (~3e-7 relative), for even
+  square grids up to ``_DFT_MAX_NX`` (dealias-folded transforms up to
+  ``_DFT_FOLD_MAX_NX``). O(N) more FLOPs than an FFT, as matrix products.
+- ``dft3``: the dense DFT with the BF16_BF16_F32_X3 dot algorithm
+  (~2.4e-5 relative).
 
-Read at trace time; equality is pinned by tests/test_core.py.
+Equality with ``jnp.fft`` is pinned by tests/test_core.py.
 """
 from __future__ import annotations
 
@@ -45,14 +40,10 @@ __all__ = [
 ]
 
 _DFT_MAX_NX = 512        # plain transforms: dense cost grows N^3 vs the
-                         # FFT's N^2 log N — wins at 512^2, loses 1.6x at
-                         # 1024^2 (prof_r5_flow_fft2.py)
+                         # FFT's N^2 log N
 _DFT_FOLD_MAX_NX = 2048  # dealias-FOLDED transforms compute only the kept
-                         # 2/3 modes (~0.45x the matmuls): ahead at 1024^2
-                         # (132 vs 143 us/transform HIGHEST, 70 us dft3 —
-                         # prof_r5_fold1024.py) AND at 2048^2 (965 vs 1103
-                         # us/transform, 12.5%). JRSW_DFT_MAX_NX overrides
-                         # both gates (probing).
+                         # 2/3 modes (~0.45x the matmuls). JRSW_DFT_MAX_NX
+                         # overrides both gates.
 
 
 def _dft_max_nx(folded: bool = False) -> int:
@@ -64,13 +55,7 @@ def _dft_max_nx(folded: bool = False) -> int:
 
 def _fft_impl() -> str:
     mode = os.environ.get("JRSW_FFT", "auto")
-    if mode == "auto":
-        try:
-            tpu = jax.devices()[0].platform == "tpu"
-        except Exception:  # pragma: no cover - no backend
-            tpu = False
-        return "dft" if tpu else "fft"
-    return mode
+    return "fft" if mode == "auto" else mode
 
 
 _DFT_TABLES: dict = {}
@@ -138,9 +123,6 @@ def _dft_precision():
 def _dft_supported(ny: int, nx: int, dtype, folded: bool = False) -> bool:
     if _fft_impl() == "fft":
         return False
-    if _fft_impl() == "auto" and not (jax.devices()
-                                      and jax.devices()[0].platform == "tpu"):
-        return False
     return (nx == ny and nx % 2 == 0 and nx <= _dft_max_nx(folded)
             and dtype in (jnp.float32, jnp.complex64))
 
@@ -160,9 +142,7 @@ def _cmul2(Ac, As, Asum, xr, xi, prec):
     Default: the 3-multiply Karatsuba form — M1 = Ac@xr, M2 = As@xi,
     M3 = (Ac+As)@(xr+xi); re = M1 - M2, im = M3 - M1 - M2 — which drops
     the c2c middle stage of every dense-DFT transform from 4 matmuls to 3
-    (the stage is ~57% of the transform MACs, so ~14% of transform time;
-    measured end-to-end at 512²/2048² — scripts/hw_validation.md round-5
-    "3-multiply" entry). ``Asum = Ac + As`` is a host
+    (the stage is ~57% of the transform MACs). ``Asum = Ac + As`` is a host
     constant. Rounding grows ~2x over the 4-matmul form (still f32
     round-off class under HIGHEST; pinned by tests/test_core.py).
     ``JRSW_DFT_3M=off`` restores the 4-matmul form.

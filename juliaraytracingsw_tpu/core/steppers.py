@@ -1,6 +1,6 @@
 """Time steppers for stiff pseudo-spectral systems.
 
-Provides TPU-native equivalents of every stepper the reference uses:
+Provides JAX equivalents of every stepper the reference uses:
 
 - ``make_ifab3``      : 3rd-order Adams-Bashforth with matrix-exponential
                         integrating factor for non-diagonal per-mode linear
@@ -9,7 +9,7 @@ Provides TPU-native equivalents of every stepper the reference uses:
                         on the host in float64 (replacing the reference's CUDA
                         ``kernel_exp``, utils/IFMAB3.jl:32-41) and applied each
                         step as a tiny channel einsum — elementwise
-                        multiply-adds on the VPU, fused by XLA with the AB3
+                        multiply-adds, fused by XLA with the AB3
                         update (replacing ``mv_mul_kernel``, utils/IFMAB3.jl:90-127).
 - ``make_ifrk4``      : working integrating-factor RK4 (the reference's
                         utils/IFMRK4.jl was abandoned/broken — SURVEY.md §2.1).
@@ -78,10 +78,13 @@ def apply_L(L: jax.Array, sol: jax.Array) -> jax.Array:
 
     ``L`` is either diagonal with the same shape as ``sol`` (or broadcastable
     to it), or a per-mode block ``(C, C, nl, nkr)`` acting on the channel axis
-    of ``sol`` with shape ``(C, nl, nkr)``.
+    of ``sol`` with shape ``(C, nl, nkr)``. The block contraction is pinned
+    to full float32 precision: left at the default, a GPU may run it in
+    TF32 (~3 decimal digits), three times per IF-AB3 step.
     """
     if L.ndim == sol.ndim + 1:
-        return jnp.einsum("ab...,b...->a...", L, sol)
+        return jnp.einsum("ab...,b...->a...", L, sol,
+                          precision=jax.lax.Precision.HIGHEST)
     return L * sol
 
 
@@ -90,8 +93,8 @@ def expm_tables(L, dt: float):
 
     For block operators this is a batched dense matrix exponential over all
     spectral modes — done once at setup (the reference launches a CUDA kernel
-    computing per-mode SMatrix exponentials, utils/IFMAB3.jl:44-66; on TPU a
-    one-off host precompute in float64 is both faster and more accurate,
+    computing per-mode SMatrix exponentials, utils/IFMAB3.jl:44-66; a
+    one-off host precompute in float64 is both simpler and more accurate,
     SURVEY.md §7 "hard parts").
     """
     import scipy.linalg
@@ -114,9 +117,7 @@ def expm_tables(L, dt: float):
         e2 = np.exp(Ld * 2.0 * dt)
     cdtype = np.complex64 if Lnp.dtype != np.complex128 else np.complex128
     # NOTE: return HOST numpy arrays. Closed-over numpy constants embed into
-    # jitted executables without a device transfer; device-resident complex
-    # closures would require an unimplemented d2h pull at trace time on this
-    # TPU runtime (see core/transfer.py).
+    # jitted executables without a device transfer (see core/transfer.py).
     return e1.astype(cdtype), e2.astype(cdtype)
 
 
@@ -154,8 +155,7 @@ def make_ifab3(
     filt = _as_filter(filt)
 
     def init(sol0: jax.Array) -> AB3State:
-        # sol0 * 0 instead of zeros_like: eager complex-constant transfers
-        # are unimplemented on this TPU runtime (core/transfer.py)
+        # sol0 * 0: zeros on sol0's device, no complex constant transfer
         z = sol0 * 0
         return AB3State(z, z)
 
@@ -322,8 +322,7 @@ def make_filtered_ab3(
         return apply_L(L, sol) + calcN(sol, t)
 
     def init(sol0):
-        # sol0 * 0 instead of zeros_like: eager complex-constant transfers
-        # are unimplemented on this TPU runtime (core/transfer.py)
+        # sol0 * 0: zeros on sol0's device, no complex constant transfer
         z = sol0 * 0
         return AB3State(z, z)
 

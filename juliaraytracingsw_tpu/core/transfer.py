@@ -1,11 +1,11 @@
 """Host <-> device transfer helpers that tolerate complex-transfer gaps.
 
-The TPU runtime in this environment supports complex64 arithmetic on device
-(FFTs included) but NOT complex host<->device transfers (PJRT
-"UNIMPLEMENTED"). Workaround: move real/imag planes separately and
-combine/split on device. Complex constants *captured inside jit* are fine
-(they ship inside the executable); only explicit transfers need these
-helpers. On CPU backends they are equivalent to plain asarray.
+They move real/imag planes separately and combine/split on device, for
+runtimes without complex host<->device transfers. The CPU and CUDA
+backends transfer complex64 directly (``chip_smoke.py`` phase b checks the
+GPU), so there the helpers are equivalent to plain asarray; reducing them
+to ``jnp.asarray`` / ``np.asarray`` is ROADMAP 3.4. Complex constants
+*captured inside jit* ship inside the executable either way.
 """
 from __future__ import annotations
 

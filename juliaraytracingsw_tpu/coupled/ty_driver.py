@@ -7,7 +7,7 @@ Functional re-design of the reference thomasyamada/TYdriver.jl:111-231:
   writing a ``startup`` output file and wave/geo + barotropic energy
   diagnostics (TYdriver.jl:122-179);
 - handoff: a fine-dt problem continues from the startup state and clock
-  (TYdriver.jl:181-191 — the reference also moves GPU->CPU here; on TPU the
+  (TYdriver.jl:181-191 — the reference also moves GPU->CPU here; here the
   same jitted step simply gets a new dt table);
 - phase 2: main loop with per-frame enforce_reality + rolling outputs +
   diagnostics (TYdriver.jl:208-228).
@@ -98,7 +98,6 @@ def _phase(model, cfg: TYRunConfig, sol, clock, dt, nsteps, nsubs, writer,
         return enforce_reality(sol, grid), clock, state
 
     # jitted so the complex numpy eigenbases embed as executable constants
-    # (eager complex h2d is UNIMPLEMENTED on this TPU runtime)
     @jax.jit
     def wave_geo_diag(sol):
         return thomasyamada.wave_geostrophic_energy(sol, grid)
@@ -264,7 +263,7 @@ def _phase_sharded(sh, cfg: TYRunConfig, sol_sh, clock, dt, nsteps, nsubs,
 
 
 def run_thomasyamada_sharded(cfg: TYRunConfig, mesh):
-    """Two-phase TY run on the slab-sharded model (VERDICT r4 item 7: the
+    """Two-phase TY run on the slab-sharded model (the
     sharded TY core gets the same proven CLI entry point as RSW/2LQG).
 
     Same structure as ``run_thomasyamada`` with each phase stepped by a

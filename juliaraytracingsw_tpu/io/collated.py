@@ -11,10 +11,17 @@ from __future__ import annotations
 import os
 from typing import Callable
 
-import h5py
 import numpy as np
 
 __all__ = ["CollatedWriter", "map_input"]
+
+
+def _h5py():
+    """h5py, imported only where a file is written or read (an optional
+    dependency: the simulation itself runs without it)."""
+    import h5py
+
+    return h5py
 
 
 class CollatedWriter:
@@ -34,7 +41,7 @@ class CollatedWriter:
     @property
     def file(self):
         if self._file is None:
-            self._file = h5py.File(self._path(self.idx), "w")
+            self._file = _h5py().File(self._path(self.idx), "w")
         return self._file
 
     def append(self, key: str, value):
@@ -67,9 +74,9 @@ def map_input(base: str, fn: Callable[[str, np.ndarray], object]):
         path = f"{base}_{idx:08d}.h5"
         if not os.path.exists(path):
             break
-        with h5py.File(path, "r") as f:
+        with _h5py().File(path, "r") as f:
             def visit(name, obj):
-                if isinstance(obj, h5py.Dataset):
+                if isinstance(obj, _h5py().Dataset):
                     out.append(fn(name, obj[()]))
             f.visititems(visit)
         idx += 1

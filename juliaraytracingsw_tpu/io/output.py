@@ -1,6 +1,6 @@
 """Rolling multi-file HDF5 outputs.
 
-TPU-native equivalent of the reference's SequencedOutputs / Collated
+Equivalent of the reference's SequencedOutputs / Collated
 (utils/SequencedOutputs.jl, utils/Collated.jl): after ``max_writes`` frames
 a file is closed and ``<base>.%06d.h5`` with the next index is opened. The
 group layout mirrors the reference's JLD2 files so the analysis layer reads
@@ -18,10 +18,17 @@ from __future__ import annotations
 import os
 from typing import Callable
 
-import h5py
 import numpy as np
 
 __all__ = ["SequencedWriter", "SequencedReader", "save_problem"]
+
+
+def _h5py():
+    """h5py, imported only where a file is written or read (an optional
+    dependency: the simulation itself runs without it)."""
+    import h5py
+
+    return h5py
 
 
 class SequencedWriter:
@@ -39,9 +46,9 @@ class SequencedWriter:
         return f"{self.base}.{idx:06d}.h5"
 
     @property
-    def file(self) -> h5py.File:
+    def file(self):
         if self._file is None:
-            self._file = h5py.File(self._path(self.idx), "w")
+            self._file = _h5py().File(self._path(self.idx), "w")
         return self._file
 
     def _maybe_roll(self):
@@ -126,7 +133,7 @@ class SequencedReader:
     def steps(self, group: str = "snapshots/sol"):
         out = []
         for p in self.paths:
-            with h5py.File(p, "r") as f:
+            with _h5py().File(p, "r") as f:
                 if group in f:
                     out.extend(int(s) for s in f[group].keys())
         return sorted(out)
@@ -135,7 +142,7 @@ class SequencedReader:
         """Apply fn(step, array) over every frame of every file in order."""
         results = []
         for p in self.paths:
-            with h5py.File(p, "r") as f:
+            with _h5py().File(p, "r") as f:
                 if group not in f:
                     continue
                 for s in sorted(f[group].keys(), key=int):
@@ -144,7 +151,7 @@ class SequencedReader:
 
     def read(self, key: str):
         for p in self.paths:
-            with h5py.File(p, "r") as f:
+            with _h5py().File(p, "r") as f:
                 if key in f:
                     return f[key][()]
         raise KeyError(key)
@@ -168,7 +175,7 @@ class SequencedReader:
         (:189-230): acc = reducer(acc, fn(step, array))."""
         acc = init
         for p in self.paths:
-            with h5py.File(p, "r") as f:
+            with _h5py().File(p, "r") as f:
                 if group not in f:
                     continue
                 for s in sorted(f[group].keys(), key=int):
@@ -180,7 +187,7 @@ class SequencedReader:
         """Apply fn only to frames whose step passes pred (:232-260)."""
         results = []
         for p in self.paths:
-            with h5py.File(p, "r") as f:
+            with _h5py().File(p, "r") as f:
                 if group not in f:
                     continue
                 for s in sorted(f[group].keys(), key=int):
@@ -192,7 +199,7 @@ class SequencedReader:
         """All scalar run metadata under grid/, params/, clock/ (:262-285)."""
         out = {}
         for p in self.paths:
-            with h5py.File(p, "r") as f:
+            with _h5py().File(p, "r") as f:
                 for top in ("grid", "params", "clock"):
                     if top in f:
                         for name, ds in f[top].items():
@@ -203,7 +210,7 @@ class SequencedReader:
         """Sorted (step, t) pairs of packet frames across the sequence."""
         pairs = []
         for p in self.paths:
-            with h5py.File(p, "r") as f:
+            with _h5py().File(p, "r") as f:
                 if "p/t" in f:
                     for s, ds in f["p/t"].items():
                         pairs.append((int(s), float(ds[()])))
@@ -216,7 +223,7 @@ class SequencedReader:
         (step, {x,k,u,g}) from the globally-latest packet write."""
         best_step, best = -1, None
         for p in self.paths:
-            with h5py.File(p, "r") as f:
+            with _h5py().File(p, "r") as f:
                 if "p/x" not in f:
                     continue
                 s = max(int(k) for k in f["p/x"].keys())

@@ -43,7 +43,7 @@ def _modified_N(solh, grid, pressure_of_eta, flux_var: str):
     uh, vh, hh = solh[0], solh[1], solh[2]
     ik, il = grid.ik, grid.il
     stack = jnp.stack([uh, vh, hh, ik * uh, il * uh, ik * vh, il * vh])
-    # dealiasing rides the folded transforms (round 5)
+    # dealiasing rides the folded transforms
     phys = irfft2_dealiased(stack, grid)
     u, v, h, ux, uy, vx, vy = (phys[i] for i in range(7))
 

@@ -1,6 +1,6 @@
 """General n-layer quasi-geostrophic model.
 
-TPU-native equivalent of the external GeophysicalFlows ``MultiLayerQG``
+Equivalent of the external GeophysicalFlows ``MultiLayerQG``
 module the reference drivers build problems from (e.g.
 raytracing/TwoLayerRaytracing.jl:174, simulation/TwoLayerSimulation.jl:37).
 
@@ -150,9 +150,9 @@ def make_model(
         psih = psi_from_q(qh)
         ik, il = grid.ik, grid.il
         stack = jnp.concatenate([qh, ik * psih, il * psih])  # (3n, nl, nkr)
-        # dealiasing rides the folded transforms (round 5,
-        # core/spectral.rfft2_dealiased): masked modes are never computed
-        # on the TPU DFT backend; output ops are elementwise so no further
+        # dealiasing rides the folded transforms
+        # (core/spectral.rfft2_dealiased): masked modes are never computed
+        # on the dense-DFT backend; output ops are elementwise so no further
         # dealias is needed
         phys = irfft2_dealiased(stack, grid)
         q, psix, psiy = phys[0:n], phys[n:2 * n], phys[2 * n:3 * n]
@@ -169,10 +169,9 @@ def make_model(
 
 def streamfunction_from_pv(qh, grid, params: MultiLayerParams):
     # the inverse stretching matrix is REAL — keep it float32 so eager
-    # calls only transfer real host data (complex h2d is UNIMPLEMENTED on
-    # this TPU runtime; promotion to complex happens on device).
-    # precision=HIGHEST: einsums that lower to MXU matmuls on TPU default
-    # to bf16 passes (~1e-2 relative error on O(1) coefficients, measured);
+    # calls only transfer real host data (promotion to complex happens on
+    # device). precision=HIGHEST: at default precision an accelerator may
+    # run these contractions with reduced-precision passes (TF32 on GPUs);
     # these tiny n x n channel contractions cost nothing at full precision.
     Sinv = _sinv(grid, params).astype(np.float32)
     return jnp.einsum("ab...,b...->a...", Sinv, qh,

@@ -13,7 +13,7 @@ kernel; here it is a vectorised numpy construction, exponentiated once on
 host — core/steppers.expm_tables).
 
 State: (3, nl, nkr) complex spectral stack [uh, vh, etah].
-TPU design: all inverse transforms of the RHS are fused into ONE batched
+Design: all inverse transforms of the RHS are fused into ONE batched
 irfft2 of 7 fields and ONE batched rfft2 of 4 products (the reference does
 10 sequential cuFFT round-trips with two scratch fields,
 rsw/RotatingShallowWater.jl:140-230).
@@ -85,9 +85,9 @@ def _advection_N(solh, grid: Grid, rotational_only: bool = False):
     its rotational (divergence-free) part (Linborg variant,
     rsw/LinborgShallowWater.jl:155-237).
 
-    Dealiasing rides the folded transforms (round 5): the masked
-    irfft2/rfft2 pair applies the 2/3 truncation as part of the transform
-    itself — on the TPU DFT backend the masked modes are never computed
+    Dealiasing rides the folded transforms: the masked irfft2/rfft2 pair
+    applies the 2/3 truncation as part of the transform itself — on the
+    dense-DFT backend the masked modes are never computed
     (core/spectral.rfft2_dealiased), elsewhere the mask multiply is
     explicit. The output needs no further dealias: every post-transform op
     here is an elementwise multiply, which commutes with the mask."""

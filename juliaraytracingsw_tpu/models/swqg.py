@@ -61,9 +61,9 @@ def make_model(
         ik, il = grid.ik, grid.il
         # one batched inverse FFT: q, psi_x, psi_y
         stack = jnp.stack([qh, ik * psih, il * psih])
-        # dealiasing rides the folded transforms (round 5,
-        # core/spectral.rfft2_dealiased): masked modes are never computed
-        # on the TPU DFT backend; output ops are elementwise so no further
+        # dealiasing rides the folded transforms
+        # (core/spectral.rfft2_dealiased): masked modes are never computed
+        # on the dense-DFT backend; output ops are elementwise so no further
         # dealias is needed
         q, psix, psiy = irfft2_dealiased(stack, grid)
         prods = jnp.stack([psix * q, psiy * q])

@@ -64,7 +64,7 @@ def make_model(grid, nu=3.5e-25, nnu=8, Ro=0.2) -> Model:
         ])
         # input stays explicitly dealiased above: N has LINEAR terms in
         # solh (wave coupling) that never pass through the folded
-        # transforms; the transforms themselves fold the mask (round 5)
+        # transforms; the transforms themselves fold the mask
         ph = irfft2_dealiased(stack, grid)
         zt, ut, vt, uc, vc, ucy, vcx, uty, vtx, pcx, pcy = (
             ph[i] for i in range(11)

@@ -111,9 +111,9 @@ def make_model(
         psih = streamfunction_from_pv(qh, grid, params)
         ik, il = grid.ik, grid.il
         stack = jnp.concatenate([qh, ik * psih, il * psih])  # (6, nl, nkr)
-        # dealiasing rides the folded transforms (round 5,
-        # core/spectral.rfft2_dealiased): masked modes are never computed
-        # on the TPU DFT backend; output ops are elementwise so no further
+        # dealiasing rides the folded transforms
+        # (core/spectral.rfft2_dealiased): masked modes are never computed
+        # on the dense-DFT backend; output ops are elementwise so no further
         # dealias is needed
         phys = irfft2_dealiased(stack, grid)
         q, psix, psiy = phys[0:2], phys[2:4], phys[4:6]

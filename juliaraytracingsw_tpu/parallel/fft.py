@@ -3,13 +3,12 @@
 For grids too large to replicate (1024^2+, multi-host), the physical field
 is sharded in y-slabs: each chip holds (C, ny/P, nx). The transform is
 
-    local rfft over x  ->  all_to_all transpose over ICI  ->  local fft over y
+    local rfft over x  ->  all_to_all transpose  ->  local fft over y
 
 yielding a spectrum sharded in kr-columns (C, nl, nkr/P); the inverse
-reverses the pipeline. This is the TPU-native replacement for the
-reference's single-GPU cuFFT plans (SURVEY.md §2.6 item 7: "XLA FFT +
-distributed slab transpose over ICI"); XLA lowers ``lax.all_to_all`` to ICI
-collective-permutes.
+reverses the pipeline. It extends the reference's single-GPU cuFFT plans
+across cards (SURVEY.md §2.6 item 7: "XLA FFT + distributed slab
+transpose"); on GPUs XLA lowers ``lax.all_to_all`` to NCCL.
 
 The odd rfft length (nkr = nx//2 + 1) is zero-padded to a multiple of the
 mesh size before the transpose and cropped after.
@@ -34,11 +33,9 @@ from ..core.spectral import (_cmul2, _dft1_tables, _dft_precision,
 
 def _dense1_ok(n: int, dtype) -> bool:
     """Use dense 1-D DFT matmuls for this axis length? Same JRSW_FFT knob
-    and <=512 gate as the replicated backend (round 5: the per-shard slab
-    transform pieces are full-length 1-D transforms, so the DFT-beats-FFT
-    result carries straight into the distributed path; no dealias folding
-    here: the kr axis is SHARDED, so kept-mode slicing would unbalance
-    the shards)."""
+    and <=512 gate as the replicated backend (the per-shard slab transform
+    pieces are full-length 1-D transforms; no dealias folding here: the kr
+    axis is SHARDED, so kept-mode slicing would unbalance the shards)."""
     return _dft_supported(n, n, dtype)
 
 

@@ -1,10 +1,11 @@
 """Device meshes and sharding policies.
 
 The scaling story (SURVEY.md §2.7): rays never interact, so packets shard
-perfectly over chips (``PartitionSpec('packets')``); the Eulerian spectral
-state is replicated per chip at production sizes (512^2 x 3 complex64
-~ 3 MB) and every chip computes the flow step redundantly — zero
-communication on the ICI except the packet-loss psum in the backward pass.
+perfectly over cards (``PartitionSpec('packets')``); the Eulerian spectral
+state is replicated per card at production sizes (512^2 x 3 complex64
+~ 3 MB) and every card computes the flow step redundantly — no
+communication between cards except the packet-loss psum in the backward
+pass.
 Slab-decomposed distributed FFT for 1024^2+ lives in parallel/fft.py.
 """
 from __future__ import annotations
@@ -24,10 +25,10 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> int:
     """Multi-host runtime init (SURVEY.md §5.8: the reference has no
     distributed backend — its cross-job layer was SLURM arrays + the
-    filesystem; here a pod slice becomes one logical device set).
+    filesystem; here several hosts become one logical device set).
 
     Wraps ``jax.distributed.initialize``; args default from the cluster
-    environment (TPU pod metadata / SLURM / coordinator env vars). Call once
+    environment (SLURM / MPI / coordinator env vars). Call once
     per process before any jax computation; returns the process index.
     No-op on a single-process run.
     """

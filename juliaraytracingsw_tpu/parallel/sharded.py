@@ -4,7 +4,7 @@ For grids too large to replicate per chip (the reference's largest
 production grid is a 2048^2 two-layer QG, swqg/TwoLayerParameters.jl:5;
 SURVEY.md §2.7 calls for slab/pencil FFT at 1024^2+), the spectral state
 lives kr-column-sharded across the mesh and every transform in ``calcN``
-runs as local FFT -> ICI all_to_all transpose -> local FFT
+runs as local FFT -> all_to_all transpose -> local FFT
 (parallel/fft.local_rfft2 / local_irfft2). The IF-AB3 step — matrix-
 exponential apply, AB3 history, dealiasing — is elementwise in spectral
 space and therefore embarrassingly sharded; only the transposes touch the
@@ -12,7 +12,7 @@ interconnect.
 
 The machinery (padded sharded constants, shard_map stepper, all-gathered
 interpolation fields, coupled ray frame) is model-independent; per-model
-deltas are exactly (VERDICT r3 item 1):
+deltas are exactly:
 
 - ``_build_L``      : the host-side (C, C, nl, nkr) block (or (nl, nkr)
                       diagonal) linear operator;
@@ -27,7 +27,7 @@ swqg/TwoLayerQG.jl:77,184-206) and ``ShardedSWQG`` (swqg/SWQG.jl).
 
 Coupled ray tracing on top: after each sharded flow step the 5
 interpolation fields are formed locally in y-slabs and ``all_gather``-ed to
-every device (SURVEY.md §2.7: this collective is the ICI-bandwidth-critical
+every device (SURVEY.md §2.7: this collective is the interconnect-bandwidth-critical
 path); the patch table is then built replicated and packets advance
 data-parallel along their own axis.
 
@@ -126,12 +126,10 @@ class ShardedSpectralModel:
             spec = spec_for(a)
             if np.iscomplexobj(a):
                 # keep complex constants as HOST numpy: they embed into
-                # jitted executables without a device transfer, whereas
-                # device-resident complex arrays captured by an OUTER jit
-                # require a complex d2h pull at trace time — UNIMPLEMENTED
-                # on some TPU runtimes (core/transfer.py; same policy as
-                # the replicated steppers' expm tables). shard_map in_specs
-                # still apply to the embedded constant at compile time.
+                # jitted executables without a device transfer (same
+                # policy as the replicated steppers' expm tables,
+                # core/transfer.py). shard_map in_specs still apply to the
+                # embedded constant at compile time.
                 return np.ascontiguousarray(a), spec
             return jax.device_put(
                 jnp.asarray(a), NamedSharding(self.mesh, spec)), spec
@@ -163,8 +161,7 @@ class ShardedSpectralModel:
         """(C, nl, nkr) replicated/host -> (C, nl, nkr_pad) sharded.
 
         A channel-less (nl, nkr) solution (SWQG) grows a leading C=1 axis.
-        Complex transfers go plane-by-plane (core/transfer.py: complex
-        host<->device is UNIMPLEMENTED on some TPU runtimes).
+        Complex transfers go through core/transfer.py.
         """
         from ..core.transfer import to_host
 
@@ -216,7 +213,7 @@ class ShardedSpectralModel:
 
     def _fields_local(self, sol, c):
         """Streamfunction -> 5 interpolation fields, local y-slab inverse
-        transform, then all_gather to full replication (the ICI-critical
+        transform, then all_gather to full replication (the interconnect-critical
         collective, SURVEY.md §2.7)."""
         g = self.grid
         ik, il = c["ik"], c["il"]
@@ -276,14 +273,15 @@ class ShardedSpectralModel:
                            k_cutoff: float | None = None,
                            k0: float | None = None,
                            overlap: bool = False,
-                           n_packets: int | None = None):
+                           n_packets: int | None = None,
+                           interpret: bool = False):
         """Jitted frame interleaving sharded flow steps with data-parallel
         ray substeps — the multi-chip equivalent of
         coupled.driver.make_coupled_frame.
 
         ``overlap=True`` pipelines the rays one flow interval behind the
         PDE: each scan iteration advances the flow to t_{n+2} (whose
-        interpolation-field ``all_gather`` rides the ICI) while the packets
+        interpolation-field ``all_gather`` runs) while the packets
         advance through the already-gathered [t_n, t_{n+1}] pair — the two
         halves share no data, so XLA's latency-hiding scheduler can overlap
         the collective with the ray gather/VPU work (SURVEY.md §2.7
@@ -291,11 +289,11 @@ class ShardedSpectralModel:
         the trajectories IDENTICAL to the sequential frame — same field
         pairs, same order — pinned by tests/test_sharded_rsw.py.
 
-        With the fused Pallas substep default (JRSW_FUSED=auto on TPU) the
-        kernel runs on the data-parallel packet shards; hardware-validated
-        on a 1-device mesh (scripts/hw_validation.md). On multi-chip
-        meshes, if the partitioner rejects the custom call, set
-        JRSW_FUSED=off — the chunked XLA path is within ~11%."""
+        The patch-path ray substep runs under ``shard_map`` over the packet
+        axis: each card traces its own packet shard through the replicated
+        pair table, so the fused Pallas kernel (GPU backends) never has to
+        be partitioned by XLA. ``interpret=True`` runs that kernel in the
+        Pallas interpreter on any backend (tests)."""
         from ..rays.raytrace import _raytrace_taps, _use_patch, resolve_gather
 
         g = self.grid
@@ -312,14 +310,20 @@ class ShardedSpectralModel:
         _, step_fn = self.stepper()
         fields_fn = self._fields_jit()
 
-        def trace(packets, T_old, T_new, t0, t1):
+        def trace_local(packets, T_old, T_new, t0, t1):
             packets = raytrace_tables(
                 packets, make_pair_table(T_old, T_new, rp.table_dtype), t0, t1, rp, ny, nx,
                 nsubsteps=ray_substeps, method=ray_method,
+                interpret=interpret,
             )
             if k_cutoff is not None:
                 packets = k_cutoff_reset(packets, k_cutoff, k0)
             return packets
+
+        trace = jax.shard_map(
+            trace_local, mesh=self.mesh,
+            in_specs=(P(self.axis), P(), P(), P(), P()),
+            out_specs=P(self.axis), check_vma=False)
 
         def one(carry, _):
             sol, clock, sstate, packets, fields_old, T_old = carry
@@ -571,7 +575,7 @@ class ShardedMultiLayerQG(ShardedSpectralModel):
 
     State (n, nl, nkr_pad); the per-mode n x n inverse stretching matrix is
     a kr-column-sharded constant applied as a channel einsum (the
-    batched-trailing-dims form lowers elementwise — exact on the MXU). The
+    batched-trailing-dims form lowers elementwise). The
     ray-advecting streamfunction is the depth-weighted (barotropic) mean
     sum_j delta_j psi_j (raytracing/TwoLayerRaytracing.jl:122 generalised).
     """

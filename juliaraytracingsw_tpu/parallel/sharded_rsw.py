@@ -2,7 +2,7 @@
 
 ``ShardedRSW`` instantiates the model-generic slab-sharded core
 (parallel/sharded.ShardedSpectralModel — kr-column-sharded state, slab-local
-FFTs with ICI all_to_all transposes, all-gathered interpolation fields,
+FFTs with all_to_all transposes, all-gathered interpolation fields,
 data-parallel coupled rays) for the 3-field RSW system
 (rsw/RotatingShallowWater.jl): full 3x3 non-diagonal L handled by the
 matrix-exponential IF-AB3, advection + height-flux nonlinearity, and the

@@ -1,8 +1,7 @@
 """Periodic field interpolation at scattered packet positions.
 
-TPU has no texture units (the reference binds 10 CUDA textures per ray step,
-raytracing/GPURaytracing.jl:115-134), so interpolation is an explicit gather
-+ weighted sum, batched over a leading field axis so one XLA gather serves
+Interpolation is an explicit gather + weighted sum (the reference binds 10
+CUDA textures per ray step, raytracing/GPURaytracing.jl:115-134), batched over a leading field axis so one XLA gather serves
 all fields (u, v, ux, uy, vx, ...) at once:
 
 - ``bilinear``  : 4-point stencil — the accuracy class of the reference's
@@ -12,7 +11,7 @@ all fields (u, v, ux, uy, vx, ...) at once:
                   (B-spline coefficient solve) is DIAGONAL in Fourier space
                   for periodic uniform grids, so spectral models get exact
                   C2 B-spline interpolation for one elementwise multiply —
-                  the TPU-native equivalent of the reference CPU path
+                  the equivalent of the reference CPU path
                   (Interpolations.jl ``BSpline(Cubic(Periodic))``,
                   raytracing/Raytracing.jl:152-159).
 - ``bicubic_hermite`` : f/fx/fy/fxy corner-data bicubic from the reference's
@@ -63,9 +62,8 @@ def _gather_taps(fields, tap_flat_idx):
 
     fields (F, ny, nx); tap_flat_idx (T, N) flattened yx indices ->
     (F, T, N). PERFORMANCE-CRITICAL: a single 1-D ``jnp.take`` over the
-    fully-flattened field lowers to an efficient TPU dynamic-gather running
-    at HBM bandwidth; per-tap ``take(..., axis=1)`` calls are ~500x slower
-    (measured 0.10 ms vs 48 ms for 1M packets x 4 taps x 5 fields at 512^2).
+    fully-flattened field lowers to one dynamic gather; per-tap
+    ``take(..., axis=1)`` calls lower to many small gathers.
     """
     F, ny, nx = fields.shape
     T, N = tap_flat_idx.shape

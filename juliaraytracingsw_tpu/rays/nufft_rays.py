@@ -3,7 +3,7 @@
 Equivalent of the reference raytracing/NUFFTRaytracing.jl (which evaluates
 velocity/gradient spectra at packet positions with type-2 NUFFT and was
 partially bit-rotted — SURVEY.md §2.3): here the evaluation is the exact
-dense contraction of analysis/nufft.py (two MXU matmuls per stage), linear
+dense contraction of analysis/nufft.py (two matmuls per stage), linear
 time blending between spectral snapshots, fixed-substep RK4/midpoint.
 
 Use when interpolation error must be zero (verification oracles for the

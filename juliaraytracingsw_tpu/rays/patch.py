@@ -1,22 +1,20 @@
-"""Patch-gather ray interpolation: the TPU-fast path.
+"""Patch-gather ray interpolation: the fast ray path.
 
-Motivation (measured on TPU v5e via this repo's prof_* scripts): XLA lowers
-scattered ``jnp.take`` to a serial per-index loop costing ~13 ns *per index*
-regardless of the gathered row width (up to the 128-lane register width).
-The reference's CUDA texture path (raytracing/GPURaytracing.jl:115-134) does
-~10 texture fetches per packet per RHS eval; a literal translation (one
-gather per tap per field) costs 20 indices/packet/stage and runs at ~0.5
-GB/s effective. The TPU-native formulation inverts the layout:
+The reference's CUDA texture path (raytracing/GPURaytracing.jl:115-134)
+does ~10 texture fetches per packet per RHS eval; a literal translation
+(one gather per tap per field) costs 20 scattered indices per packet per
+stage. The patch formulation inverts the layout:
 
   1. Once per ray substep, build a *packed patch table* ``T`` of shape
      ``(ny*nx, F*ph*pw)`` where row ``c`` holds the full ``ph x pw``
      neighborhood of cell ``c`` for all F fields (built with jnp.roll —
      pure streaming traffic, no gathers).
-  2. ONE ``jnp.take`` per packet per time level fetches the whole
-     neighborhood (<=128 lanes ride free with the single index).
-  3. Every integrator stage then interpolates *locally* from the in-register
-     patch with VPU arithmetic only — zero further gathers. Patches are
-     blended linearly in time per stage (blend commutes with gather).
+  2. ONE ``jnp.take`` per packet fetches the whole neighborhood of both
+     time levels (the (old|new) pair table, one index per packet).
+  3. Every integrator stage then interpolates *locally* from the gathered
+     patch with elementwise arithmetic only — zero further gathers.
+     Patches are blended linearly in time per stage (blend commutes with
+     gather).
 
 Validity: a patch centered on the packet's cell at gather time covers local
 fractional offsets in [-(lo), pw-lo-1); stages stay valid while the packet
@@ -101,8 +99,7 @@ def build_pair_table_direct(fields_old, fields_new, method: str = "bilinear",
     Column layout is identical to
     ``make_pair_table(build_patch_table(old), build_patch_table(new))``
     (channel-major (c, dy, dx) patch ordering — pinned by tests; bit-exact
-    on CPU, MXU-rounding-exact on TPU where the conv lowers through the
-    matrix unit). For bf16 tables the cast happens BEFORE the build so the
+    on CPU). For bf16 tables the cast happens BEFORE the build so the
     conv streams half the bytes.
     """
     ph, pw, lo = PATCH_SHAPES[method]
@@ -110,8 +107,9 @@ def build_pair_table_direct(fields_old, fields_new, method: str = "bilinear",
     X = jnp.concatenate([fields_old, fields_new]).astype(jnp.dtype(dtype))
     Xp = jnp.pad(X, ((0, 0), (lo, ph - 1 - lo), (lo, pw - 1 - lo)),
                  mode="wrap")[None]
-    # full precision: the patch-extraction conv has a 0/1 kernel, but the TPU
-    # MXU default is bf16 passes which would silently round f32 tables
+    # full precision: the patch-extraction conv has a 0/1 kernel, but a
+    # reduced-precision default (TF32 on GPUs) would silently round f32
+    # tables
     P = jax.lax.conv_general_dilated_patches(
         Xp, (ph, pw), (1, 1), "VALID",
         dimension_numbers=("NCHW", "OIHW", "NHWC"),
@@ -233,12 +231,10 @@ def patch_interpolate_pair(rows_pair, local_x, local_y, a,
     a         : scalar blend (0 -> old snapshot, 1 -> new)
     returns   : (F, N)  (F//4 rows for the bicubic corner-data layout)
 
-    MXU formulation: one full-width elementwise multiply by the tiled
+    Matmul formulation: one full-width elementwise multiply by the tiled
     separable weights, then a (N, 2W) x (2W, F) matmul whose selector
-    matrix folds BOTH the per-field tap reduction and the time blend —
-    the (N, F, ph, pw) broadcast form forces minor-dim relayouts on TPU,
-    while this shape keeps the whole reduction on the MXU and reads the
-    gathered rows exactly once."""
+    matrix folds BOTH the per-field tap reduction and the time blend, so
+    the gathered rows are read exactly once."""
     ph, pw, lo = PATCH_SHAPES[method]
     pp = ph * pw
     N, W2 = rows_pair.shape
@@ -259,8 +255,8 @@ def patch_interpolate_pair(rows_pair, local_x, local_y, a,
         M = _selector(ph, pw, F, rows_pair.dtype)              # (W, F)
     w_t2 = jnp.concatenate([w_t, w_t], axis=1)             # (N, 2W)
     Mb = jnp.concatenate([(1.0 - a) * M, a * M], axis=0)   # (2W, F)
-    # full-precision matmul: the TPU MXU default is bf16 passes, which
-    # would silently round the interpolated fields (~2^-8 relative)
+    # full-precision matmul: a reduced-precision default (TF32 on GPUs)
+    # would silently round the interpolated fields
     return jnp.dot(rows_pair * w_t2, Mb,
                    precision=jax.lax.Precision.HIGHEST).T  # (F, N)
 
@@ -339,7 +335,7 @@ def patch_interpolate(patches, local_x, local_y, method: str = "bilinear",
         wy = _axis_weights_bspline(local_y, ph, lo)
     else:
         raise ValueError(f"unknown patch interp {method!r}")
-    # contract x then y on the VPU: (N,F,ph,pw)*(N,1,1,pw) -> (N,F,ph)
+    # contract x then y elementwise: (N,F,ph,pw)*(N,1,1,pw) -> (N,F,ph)
     v = jnp.sum(P * wx[:, None, None, :], axis=3)
     v = jnp.sum(v * wy[:, None, :], axis=2)
     return v.T                                      # (F, N)

@@ -2,7 +2,7 @@
 Makie Observables figures (simulation/TwoLayerSimulation.jl:44-70 updates a
 KE time series + q/psih heatmaps every frame while the run progresses).
 
-TPU pods run headless, so instead of a GL window the dashboard atomically
+Accelerator hosts run headless, so instead of a GL window the dashboard atomically
 rewrites ``live.png`` + a self-refreshing ``live.html`` in the run
 directory every ``every`` frames; point any browser (or an IDE preview) at
 the file to watch the run. Costs one device->host transfer of the plotted

@@ -7,7 +7,7 @@ The canonical verification drive (see .claude/skills/verify/SKILL.md):
   4. misuse probe (unknown stepper name).
 
 Runs on 8 virtual CPU devices by default; delete the two config lines to run
-on the real TPU chip.
+on a GPU.
 """
 import os
 import sys

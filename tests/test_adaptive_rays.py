@@ -1,5 +1,5 @@
 """Adaptive embedded ray integrator + closed-form shear-flow oracle
-(VERDICT r1 items 6/8; reference production path is adaptive Vern7,
+(reference production path is adaptive Vern7,
 raytracing/GPURaytracing.jl:111-113; oracle notebooks
 AnalyticStationaryRaytracing.ipynb / TimeDependentShearFlow.ipynb)."""
 import jax
@@ -123,7 +123,7 @@ class TestRKF78:
     def test_smooth_rhs_matched_accuracy_fewer_steps(self):
         """On a SMOOTH analytic RHS the 7(8) pair achieves the same accuracy
         as DP5(4) at matched rtol with several-fold fewer accepted steps —
-        the measured step-count study of VERDICT r2 item 8 (full sweep:
+        the step-count study (full sweep:
         benchmarks/adaptive_order_study.py). Run in f64 numpy: the point is
         the tableau/controller, not the interpolation."""
         from scipy.integrate import solve_ivp
@@ -280,7 +280,7 @@ def test_while_loop_matches_scan():
 
 
 def test_chunked_adaptive_matches_unchunked(monkeypatch):
-    """The VMEM-chunked adaptive attempt (JRSW_RAY_CHUNK) combines exact
+    """The packet-chunked adaptive attempt (JRSW_RAY_CHUNK) combines exact
     per-chunk squared-error partial sums, so step counts are identical and
     trajectories agree to FP roundoff (the error norm's reduction order
     perturbs h in the last ulp)."""

@@ -58,7 +58,7 @@ def test_thomasyamada_two_phase_cli(tmp_path):
 
 
 def test_omega_k_mem_cap_blocking_and_fanout(tmp_path):
-    """Streamed omega-k (VERDICT r2 item 6): a tiny --mem-cap-gb forces
+    """Streamed omega-k: a tiny --mem-cap-gb forces
     multiple k sub-blocks whose per-k outputs are identical to the
     unblocked run, and --fanout runs the full k range as concurrent
     launcher-backed task processes."""
@@ -240,7 +240,7 @@ def test_sharded_checkpoint_restore_roundtrip(tmp_path):
 def test_thomasyamada_sharded_cli(tmp_path):
     """thomasyamada --sharded runs both phases on ShardedThomasYamada with
     the same outputs/diagnostics as the replicated two-phase driver
-    (VERDICT r4 item 7)."""
+   ."""
     main(["thomasyamada", "--sharded", "--nx", "32", "--ty-dt", "1e-3",
           "--startup-dt-factor", "2", "--startup-T", "0.01",
           "--T", "0.01", "--output-dt", "0.005",
@@ -256,7 +256,7 @@ def test_thomasyamada_sharded_cli(tmp_path):
 def test_multilayer_sharded_cli(tmp_path):
     """twolayer --nlayers 3 --sharded: the n-layer MultiLayerQG path on
     ShardedMultiLayerQG, packets on the depth-weighted barotropic mean
-    (VERDICT r4 item 7)."""
+   ."""
     out = tmp_path / "sh3l"
     out.mkdir()
     main(["twolayer", "--nlayers", "3", "--sharded", "--U", "0.1",

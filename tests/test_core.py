@@ -178,10 +178,9 @@ def test_apply_L_block_vs_diag():
 
 
 def test_dft_backend_matches_fft(monkeypatch):
-    """JRSW_FFT=dft (round 5: dense DFT-matmul transforms, the TPU auto
-    default at <=512^2 — prof_r5_flow_fft2.py measured 33.2 vs 47.8
-    us/transform) must match jnp.fft to f32 roundoff, both directions,
-    batched and single-field, including gradients."""
+    """JRSW_FFT=dft (dense DFT-matmul transforms) must match jnp.fft to
+    f32 roundoff, both directions, batched and single-field, including
+    gradients."""
     import jax
 
     from juliaraytracingsw_tpu.core import spectral

@@ -1,4 +1,4 @@
-"""End-to-end golden smoke run (VERDICT r2 item 9): rsw 128^2 + packets
+"""End-to-end golden smoke run: rsw 128^2 + packets
 through spinup, coupled frames, the analyze suite, and the HTML report —
 asserting stored summary statistics against recorded golden values.
 

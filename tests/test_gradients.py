@@ -125,8 +125,8 @@ class TestRayGradients:
 
 
 class TestPatchBackwardFormulation:
-    """Two backward formulations exist for the patch fast path (VERDICT r3
-    item 5; both measured, AD table transpose is the default — see
+    """Two backward formulations exist for the patch fast path (AD table
+    transpose is the default — see
     rays/raytrace._patch_bwd_impl). Pin: the default patch backward matches
     the taps-gather path's gradients, and the opt-in JRSW_PATCH_BWD=taps
     custom VJP agrees with both."""

@@ -1,4 +1,4 @@
-"""JLD2 reader fixture test (VERDICT r1 item 7): hand-write an HDF5 file
+"""JLD2 reader fixture test: hand-write an HDF5 file
 with the JLD2 on-disk layout — complex (re, im) compound dtype, Julia
 column-major array order — and check the reader round-trips it and that
 cmd_steady_raytracing runs on it."""
@@ -85,7 +85,7 @@ class TestJLD2Reader:
 
 
 class TestJLD2Fidelity:
-    """Structurally-faithful fixtures (VERDICT r2 item 9): superblock v2+,
+    """Structurally-faithful fixtures: superblock v2+,
     /_types committed datatypes with julia_type attrs, unicode keys and
     struct fieldnames — the features real JLD2.jl files carry."""
 

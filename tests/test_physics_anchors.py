@@ -1,5 +1,5 @@
 """CI-scale versions of the long-horizon physics anchors
-(benchmarks/hw_validation/physics_anchors.py; VERDICT r3 item 8). The
+(benchmarks/hw_validation/physics_anchors.py). The
 full-scale runs (512^2 x 1000 steps, 128^2 f64 convergence) are recorded in
 scripts/hw_validation.md from on-chip executions."""
 import numpy as np

@@ -218,7 +218,7 @@ class TestRays:
         """Divergence bound over a LONG horizon (100 substeps through an
         evolving blend): bf16 table storage rounds fields to ~2^-8 relative,
         so trajectories drift linearly in the field error, not worse
-        (VERDICT r2 item 2 — promotes bf16 from spot-check to measured)."""
+        (promotes bf16 from spot-check to measured)."""
         g = make_grid(64)
         f0 = fields_from_psih(band_limited_psih(g, rng, amp=0.05), g)
         f1 = fields_from_psih(band_limited_psih(g, rng, amp=0.05), g)
@@ -362,7 +362,7 @@ class TestResample:
 def test_chunked_stage_math_matches(monkeypatch):
     from juliaraytracingsw_tpu.coupled.initial_conditions import random_band_psih
     """JRSW_RAY_CHUNK wraps the substep in lax.map over packet chunks
-    (the XLA-only HBM-re-read lever, VERDICT r3 item 4) — trajectories must
+    (the XLA-only HBM-re-read lever) — trajectories must
     be identical to the unchunked path."""
     import jax
 
@@ -390,13 +390,13 @@ def test_chunked_stage_math_matches(monkeypatch):
 
 
 def test_resolve_gather_auto_crossover():
-    """gather='auto' encodes the measured patch-vs-taps crossover (VERDICT
-    r4 item 4): 512^2+1M -> patch, 2048^2+262k -> taps, no flags needed."""
+    """gather='auto' encodes the patch-vs-taps crossover:
+    512^2+1M -> patch, 2048^2+262k -> taps, no flags needed."""
     from juliaraytracingsw_tpu.rays.raytrace import resolve_gather
 
     rp = RayParams(f=3.0, Cg=1.0, x0=0.0, y0=0.0, dx=0.1, dy=0.1,
                    gather="auto")
-    # measured anchors (docs/PERFORMANCE.md, scripts/hw_validation.md)
+    # the anchors rays/raytrace.PATCH_TAPS_CROSSOVER was fitted to
     assert resolve_gather(rp, 1 << 20, 512, 512).gather == "patch"
     assert resolve_gather(rp, 262144, 512, 512).gather == "patch"
     assert resolve_gather(rp, 262144, 2048, 2048).gather == "taps"

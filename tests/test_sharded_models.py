@@ -1,5 +1,5 @@
 """Slab-sharded TwoLayerQG / SWQG end-to-end tests on the 8-virtual-device
-CPU mesh (VERDICT r3 item 1: generalize the sharded flow path beyond RSW —
+CPU mesh (generalize the sharded flow path beyond RSW —
 the reference's largest production grid is a 2048^2 two-layer QG,
 swqg/TwoLayerParameters.jl:5). Each model: sharded step == replicated step,
 sharded ray fields == replicated fields, sharded coupled frame == replicated

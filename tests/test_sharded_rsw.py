@@ -1,5 +1,5 @@
-"""Slab-sharded RSW end-to-end tests on the 8-virtual-device CPU mesh
-(VERDICT r1 item 2): the sharded flow step must match the replicated step,
+"""Slab-sharded RSW end-to-end tests on the 8-virtual-device CPU mesh:
+the sharded flow step must match the replicated step,
 and the sharded coupled frame (flow + all-gathered fields + DP rays) must
 match the replicated coupled frame."""
 import jax
@@ -155,12 +155,12 @@ def test_overlap_frame_matches_sequential():
 
 
 @needs_8
-def test_fused_kernel_partitions_over_mesh(monkeypatch):
-    """VERDICT r4 item 2: the fused Pallas substep (JRSW_FUSED) must
-    survive SPMD partitioning over the 8-device packet axis inside the
-    sharded coupled frame — interpret mode stands in for the Mosaic kernel
-    on CPU meshes (same pallas_call, same partitioning problem), and
-    trajectories must match the default path."""
+def test_fused_kernel_partitions_over_mesh():
+    """The fused Pallas substep runs per packet shard (shard_map over the
+    8-device packet axis) inside the sharded coupled frame — interpret
+    mode stands in for the Triton kernel on CPU meshes (same pallas_call
+    under the same shard_map), and trajectories must match the default
+    path."""
     g, model, sol0 = _setup(nx=64)
     mesh = make_mesh(8)
     sh = ShardedRSW(g, model.params, mesh, dt=DT)
@@ -176,16 +176,10 @@ def test_fused_kernel_partitions_over_mesh(monkeypatch):
     _, _, _, pk_base = jax.block_until_ready(
         frame_base(sol_s, zero_clock(), init_s(sol_s), packets))
 
-    monkeypatch.setenv("JRSW_FUSED", "interpret")
-    jax.clear_caches()
-    try:
-        frame_f = sh.make_coupled_frame(rp, 3, k_cutoff=100.0 * F / CG,
-                                        k0=k0)
-        _, _, _, pk_f = jax.block_until_ready(
-            frame_f(sol_s, zero_clock(), init_s(sol_s), packets))
-    finally:
-        monkeypatch.delenv("JRSW_FUSED")
-        jax.clear_caches()
+    frame_f = sh.make_coupled_frame(rp, 3, k_cutoff=100.0 * F / CG, k0=k0,
+                                    interpret=True)
+    _, _, _, pk_f = jax.block_until_ready(
+        frame_f(sol_s, zero_clock(), init_s(sol_s), packets))
 
     for a, b in zip((pk_f.x, pk_f.y, pk_f.k, pk_f.l),
                     (pk_base.x, pk_base.y, pk_base.k, pk_base.l)):
